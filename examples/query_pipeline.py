@@ -7,7 +7,7 @@ Builds two columnar tables (orders, customers), then runs:
   WHERE o.amount >= 50
   GROUP BY c.region ORDER BY c.region
 
-entirely on the accelerator via the Query layer (filter → join →
+entirely on the device via the Query layer (filter → join →
 group_by → sort_by), and cross-checks the result against pandas-free numpy.
 
 Run: python examples/query_pipeline.py
@@ -22,13 +22,11 @@ import numpy as np
 
 
 def main():
-    import jax
+    from radix_sort.parallel.runtime import enable_compile_cache
+    from radix_sort.query import Query
+    from radix_sort.table import Table
 
-    if os.environ.get("JAX_PLATFORMS"):
-        jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
-
-    from radix_sort_tpu.query import Query
-    from radix_sort_tpu.table import Table
+    enable_compile_cache()
 
     rng = np.random.default_rng(0)
     n_orders, n_cust = 200_000, 10_000

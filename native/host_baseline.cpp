@@ -4,7 +4,7 @@
 // LSD radix sort (src/CRadixSortTask.cpp:172-222, src/CRadixSortCPU.h:29-123)
 // — and reports them in the avgTotalSTLCPU / avgTotalRDXCPU CSV columns.
 // These are the compiled C++ equivalents, exposed with a C ABI and loaded
-// from Python via ctypes (radix_sort_tpu/utils/native_baseline.py).
+// from Python via ctypes (radix_sort/utils/native_baseline.py).
 //
 // Keys arrive pre-biased to unsigned (the engine's order-preserving
 // transform, the reference's OFFSET trick), so only unsigned sorts live

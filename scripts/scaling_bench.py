@@ -2,11 +2,9 @@
 weak-scaling efficiency at 2+ hosts).
 
 Keeps per-device rows constant and sweeps mesh sizes, reporting wall time
-and efficiency vs the smallest mesh.  On this dev box only a single TPU
-chip is reachable, so hardware numbers await a real slice; run with
-RST_FORCE_CPU_MESH=1 to exercise the harness on the simulated CPU mesh
-(functional check — CPU "ICI" is shared memory, so efficiency numbers are
-not meaningful for the roofline story).
+and efficiency vs the smallest mesh.  Run with RST_FORCE_CPU_MESH=1 to
+exercise the harness on the simulated CPU mesh (a functional check only:
+CPU "links" are shared memory, so its efficiency numbers mean nothing).
 
   RST_FORCE_CPU_MESH=1 python scripts/scaling_bench.py --rows-per-dev 16384
 
@@ -51,8 +49,8 @@ def main():
 
     import jax.numpy as jnp
 
-    from radix_sort_tpu.parallel import dist_ops, dist_sort, mesh as mesh_lib
-    from radix_sort_tpu.table import Table
+    from radix_sort.parallel import dist_ops, dist_sort, mesh as mesh_lib
+    from radix_sort.table import Table
 
     def check_ops(mesh, D, rows):
         """dist aggregate + join traced and validated vs numpy at mesh size

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from radix_sort_tpu.config import SortConfig, VREG_ELEMS
+from radix_sort.config import SortConfig, BLOCK_GRANULE
 
 
 def test_defaults_valid():
@@ -11,7 +11,7 @@ def test_defaults_valid():
     assert c.radix == 256
     assert c.num_passes(np.uint32) == 4
     assert c.num_passes(np.uint64) == 8
-    assert c.block_elems % VREG_ELEMS == 0
+    assert c.block_elems % BLOCK_GRANULE == 0
 
 
 def test_reference_like_params():
@@ -25,7 +25,7 @@ def test_reference_like_params():
 @pytest.mark.parametrize("kwargs", [
     dict(bits_per_pass=3),
     dict(bits_per_pass=0),
-    dict(block_elems=1000),       # not a multiple of 8*128
+    dict(block_elems=1000),       # not a multiple of 1024
     dict(block_elems=-1024),
     dict(perf_iterations=0),
 ])

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from radix_sort_tpu import datasets
+from radix_sort import datasets
 
 
 def test_zeros(key_dtype):

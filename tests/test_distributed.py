@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radix_sort_tpu import datasets, golden
-from radix_sort_tpu.table import Table
-from radix_sort_tpu.parallel import dist_ops, dist_sort, exchange, mesh as mesh_lib
+from radix_sort import datasets, golden
+from radix_sort.table import Table
+from radix_sort.parallel import dist_ops, dist_sort, exchange, mesh as mesh_lib
 from jax.sharding import PartitionSpec as P
 
 D = 8
@@ -70,7 +70,7 @@ def test_packed_all_to_all_multibucket_slices(mesh):
     """One (sub, dest)-major stable partition feeding G exchanges via
     count/start slices — the overlapped shuffle's packing contract: every
     row arrives exactly once, in source order, in its own sub-round."""
-    from radix_sort_tpu.ops import partition as part_ops
+    from radix_sort.ops import partition as part_ops
 
     G, n_per, cap = 2, 64, 64
     rng = np.random.default_rng(1)
@@ -251,14 +251,14 @@ def test_dist_hash_join_skew_escalation(mesh):
 
 
 def test_runtime_single_host_initialize():
-    from radix_sort_tpu.parallel import runtime
+    from radix_sort.parallel import runtime
     info = runtime.initialize()
     assert info.num_processes == 1
     assert info.global_devices >= 1
 
 
 def test_runtime_health_check(mesh):
-    from radix_sort_tpu.parallel import runtime
+    from radix_sort.parallel import runtime
     status = runtime.health_check(mesh)
     assert status["ok"]
     assert status["devices"] == 8
@@ -270,9 +270,9 @@ def test_runtime_health_check(mesh):
 def test_runtime_health_check_timeout_path(mesh, monkeypatch):
     """A heartbeat EXECUTION that never completes must surface as ok=False
     within timeout_s, not hang the caller.  (Compiles happen before the
-    timer by design — minutes-long remote compiles must not read as dead
-    peers — so the hang is injected at the executable level.)"""
-    from radix_sort_tpu.parallel import runtime
+    timer by design — a long compile must not read as a dead peer — so
+    the hang is injected at the executable level.)"""
+    from radix_sort.parallel import runtime
 
     def hanging_compiled(_mesh):
         def hang(_tokens):
@@ -289,7 +289,7 @@ def test_runtime_health_check_timeout_path(mesh, monkeypatch):
 def test_runtime_health_check_setup_failure_path(mesh, monkeypatch):
     """A wedged backend / failed compile — exactly what a health check
     exists to report — must come back as a status dict, never a raise."""
-    from radix_sort_tpu.parallel import runtime
+    from radix_sort.parallel import runtime
 
     def broken_compile(_mesh):
         raise RuntimeError("backend wedged")

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radix_sort_tpu import dtypes
+from radix_sort import dtypes
 
 
 ALL = [np.uint32, np.int32, np.uint64, np.int64, np.float32, np.float64,

@@ -13,7 +13,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _run(args, timeout=240):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.pop("RST_TEST_TPU", None)
+    env.pop("RST_TEST_GPU", None)
     return subprocess.run([sys.executable] + args, cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -41,6 +41,13 @@ def test_bench_script_importable():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     assert 40 < mod.BASELINE_MKEYS_PER_SEC < 50
+
+
+def test_bench_refuses_cpu():
+    r = _run(["bench.py"])
+    assert r.returncode != 0
+    assert "measures a GPU" in r.stderr
+    assert "Mkeys/s" not in r.stdout
 
 
 def test_query_pipeline_example():

@@ -5,7 +5,7 @@ np.sort oracle — the same transitive-validation contract the reference uses
 import numpy as np
 import pytest
 
-from radix_sort_tpu import datasets, golden
+from radix_sort import datasets, golden
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 33, 1024, 5000])

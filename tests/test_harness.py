@@ -7,10 +7,10 @@ import io
 import numpy as np
 import pytest
 
-from radix_sort_tpu import datasets, harness
-from radix_sort_tpu.config import SortConfig
-from radix_sort_tpu.status import OperationStatus
-from radix_sort_tpu.utils import cli, csvio, stats
+from radix_sort import datasets, harness
+from radix_sort.config import SortConfig
+from radix_sort.status import OperationStatus
+from radix_sort.utils import cli, csvio, stats
 
 
 def _opts(**kw):
@@ -55,7 +55,7 @@ def test_max_elems_guard():
     ds = datasets.Zeros(np.uint32)
     task = harness.SortTask(np.uint32, ds,
                             options=_opts(num_elements=1 << 30))
-    from radix_sort_tpu.status import EngineError
+    from radix_sort.status import EngineError
     with pytest.raises(EngineError):
         harness.run_compute_task(task)
 
@@ -76,7 +76,7 @@ def test_csv_reference_schema():
 
 def test_csv_extended_columns():
     row = csvio.PerfRow(1024, "u32", "Zeros", mkeys_per_sec=100.0,
-                        roofline_frac=0.5, engine="pallas")
+                        roofline_frac=0.5, engine="xla_radix")
     buf = io.StringIO()
     csvio.write_rows([row], buf, extended=True)
     header = buf.getvalue().split("\n")[0]
@@ -110,9 +110,9 @@ def test_cli_reference_flags():
 
 
 def test_cli_extensions():
-    o = cli.parse_options(["--engine", "pallas", "--datatypes", "u32,u64",
+    o = cli.parse_options(["--engine", "xla_radix", "--datatypes", "u32,u64",
                            "--datasets", "Zeros"])
-    assert o.engine == "pallas"
+    assert o.engine == "xla_radix"
     assert o.datatypes == ("u32", "u64")
     assert o.datasets == ("Zeros",)
 
@@ -156,4 +156,4 @@ def test_phase_instrumentation_populates_columns():
     task.measure_phases()
     row = task.perf_row(True, "xla_radix")
     assert row.avg_histogram > 0
-    assert row.avg_paste == 0.0  # folded into scan on TPU by design
+    assert row.avg_paste == 0.0  # folded into scan by design

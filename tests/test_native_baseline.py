@@ -4,7 +4,7 @@ shared library hasn't been compiled."""
 import numpy as np
 import pytest
 
-from radix_sort_tpu.utils import native_baseline as nb
+from radix_sort.utils import native_baseline as nb
 
 pytestmark = pytest.mark.skipif(not nb.available(),
                                 reason="native library not built")

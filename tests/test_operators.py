@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radix_sort_tpu.table import Table
-from radix_sort_tpu.ops import partition, filter as filt, aggregate, join
+from radix_sort.table import Table
+from radix_sort.ops import partition, filter as filt, aggregate, join
 
 
 # ---------------------------------------------------------------- partition

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radix_sort_tpu import io as rio
-from radix_sort_tpu.query import Query
-from radix_sort_tpu.table import Table
+from radix_sort import io as rio
+from radix_sort.query import Query
+from radix_sort.table import Table
 
 
 def _t():
@@ -109,7 +109,7 @@ def test_multi_key_sort():
 def test_query_sort_by_descending():
     import numpy as np
     import jax.numpy as jnp
-    from radix_sort_tpu import Query, Table
+    from radix_sort import Query, Table
 
     rng = np.random.default_rng(31)
     g = rng.integers(0, 5, 64).astype(np.int32)

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radix_sort_tpu import datasets, datasets_device
-from radix_sort_tpu.ops import scan
+from radix_sort import datasets, datasets_device
+from radix_sort.ops import scan
 
 
 def test_exclusive_scan_engines():
@@ -13,9 +13,6 @@ def test_exclusive_scan_engines():
     exp = np.cumsum(x) - x
     assert np.array_equal(np.asarray(scan.exclusive_scan(jnp.asarray(x))),
                           exp)
-    assert np.array_equal(
-        np.asarray(scan.exclusive_scan(jnp.asarray(x), engine="pallas")),
-        exp)
 
 
 def test_segment_boundaries():

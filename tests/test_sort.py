@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from radix_sort_tpu import datasets, golden, sort, sort_kv, argsort
-from radix_sort_tpu.config import SortConfig
+from radix_sort import datasets, golden, sort, sort_kv, argsort
+from radix_sort.config import SortConfig
 
 ENGINES = ["xla_sort", "xla_radix"]
 
@@ -106,13 +106,13 @@ def test_float_keys(engine):
 
 
 def test_rejects_2d():
-    from radix_sort_tpu import EngineError
+    from radix_sort import EngineError
     with pytest.raises(EngineError):
         sort(jnp.zeros((4, 4), dtype=jnp.uint32))
 
 
 def test_unknown_engine_rejected():
-    from radix_sort_tpu import EngineError
+    from radix_sort import EngineError
     with pytest.raises(EngineError):
         sort(jnp.zeros(8, dtype=jnp.uint32), engine="nope")
 

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radix_sort_tpu import EngineError
-from radix_sort_tpu.table import Table
+from radix_sort import EngineError
+from radix_sort.table import Table
 
 
 def _t():

@@ -12,10 +12,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from radix_sort_tpu import Query, Table, dtypes, top_k, top_k_kv
-from radix_sort_tpu.ops import aggregate as agg_ops
-from radix_sort_tpu.ops import topk as topk_ops
-from radix_sort_tpu.status import EngineError
+from radix_sort import Query, Table, dtypes, top_k, top_k_kv
+from radix_sort.ops import aggregate as agg_ops
+from radix_sort.ops import topk as topk_ops
+from radix_sort.status import EngineError
 
 
 def _oracle_topk_idx(keys: np.ndarray, k: int, largest: bool) -> np.ndarray:

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radix_sort_tpu import dtypes
-from radix_sort_tpu.ops import window as win
-from radix_sort_tpu.query import Query
-from radix_sort_tpu.status import EngineError
-from radix_sort_tpu.table import Table
+from radix_sort import dtypes
+from radix_sort.ops import window as win
+from radix_sort.query import Query
+from radix_sort.status import EngineError
+from radix_sort.table import Table
 
 
 # ---------------------------------------------------------------------------
